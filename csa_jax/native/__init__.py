@@ -1,0 +1,323 @@
+"""ctypes loader for the native host kernels (libcsa_host.so).
+
+Builds lazily with ``make`` on first import if the shared library is
+missing and a toolchain is available; every caller has a pure-numpy
+fallback, so the package works without it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from typing import Optional
+
+import numpy as np
+
+_HERE = os.path.dirname(__file__)
+_LIB_PATH = os.path.join(_HERE, "libcsa_host.so")
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+
+
+_SRC_PATH = os.path.join(_HERE, "csa_host.cpp")
+
+
+def _stale() -> bool:
+    """True when the prebuilt .so predates the current source."""
+    try:
+        return os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH)
+    except OSError:
+        return True
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    if not os.path.exists(_LIB_PATH) or _stale():
+        try:
+            subprocess.run(
+                ["make", "-s", "-B", "-C", _HERE],
+                check=True,
+                capture_output=True,
+                timeout=120,
+            )
+        except Exception:
+            if not os.path.exists(_LIB_PATH):
+                return None
+            # no toolchain but a prebuilt (possibly stale) .so exists:
+            # fall through and let the guarded bindings below decide
+    try:
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        return None
+    try:
+        lib.csa_dp_fill.restype = ctypes.c_int32
+        lib.csa_dp_fill.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_void_p,
+            ctypes.c_int32, ctypes.c_void_p,
+        ]
+        lib.csa_pairwise_nw.restype = ctypes.c_int32
+        lib.csa_pairwise_nw.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_int32,
+        ]
+        lib.csa_dgc.restype = ctypes.c_int32
+        lib.csa_dgc.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+        ]
+        lib.csa_rotation_analyze.restype = ctypes.c_int32
+        lib.csa_rotation_analyze.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.csa_dp_fill_path.restype = ctypes.c_int32
+        lib.csa_dp_fill_path.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_void_p,
+            ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.csa_linear_index.restype = ctypes.c_int32
+        lib.csa_linear_index.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.csa_set_mt_threshold.restype = None
+        lib.csa_set_mt_threshold.argtypes = [ctypes.c_int64]
+        lib.csa_set_scoring.restype = None
+        lib.csa_set_scoring.argtypes = [
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ]
+        lib.csa_anchor_attach.restype = ctypes.c_int32
+        lib.csa_anchor_attach.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+    except AttributeError:
+        # stale prebuilt .so missing a newer symbol and no toolchain to
+        # rebuild: report unavailable so callers take the numpy fallback
+        return None
+    _lib = lib
+    # a scoring installed before the lazy load must reach the kernels
+    from .. import config
+
+    if config.scoring() != config.DEFAULT_SCORING:
+        push_scoring(config.scoring())
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def push_scoring(s) -> bool:
+    """Install a :class:`csa_jax.config.Scoring` into the host kernels;
+    returns False when the library is missing (numpy fallback in use)."""
+    lib = _load()
+    if lib is None:
+        return False
+    lib.csa_set_scoring(
+        int(s.match), int(s.mismatch), int(s.indel), int(s.doublegap)
+    )
+    return True
+
+
+def set_mt_threshold(cells: int) -> bool:
+    """Set the two-thread DP-fill dispatch threshold (cells); <= 0
+    restores the default.  Returns False when the library is missing."""
+    lib = _load()
+    if lib is None:
+        return False
+    lib.csa_set_mt_threshold(int(cells))
+    return True
+
+
+def dp_fill_dirs(
+    row_codes: np.ndarray,
+    scorevector: np.ndarray,
+    i: int,
+    top_row: np.ndarray,
+    edge_rowgap: int,
+):
+    """Native profile NW fill; returns (score, dirs) or None if no lib.
+
+    top_row / edge_rowgap carry the (possibly stale) DP boundary values;
+    see csa_host.cpp.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    R = len(row_codes)
+    C = len(scorevector)
+    codes = np.ascontiguousarray(row_codes, dtype=np.int8)
+    sv = np.ascontiguousarray(scorevector, dtype=np.int32)
+    top = np.ascontiguousarray(top_row, dtype=np.int32)
+    dirs = np.empty((R + 1, C + 1), dtype=np.int8)
+    score = lib.csa_dp_fill(
+        codes.ctypes.data, R, sv.ctypes.data, C, int(i),
+        top.ctypes.data, int(edge_rowgap), dirs.ctypes.data
+    )
+    return int(score), dirs
+
+
+def dp_fill_path(
+    row_codes: np.ndarray,
+    scorevector: np.ndarray,
+    i: int,
+    top_row: np.ndarray,
+    edge_rowgap: int,
+):
+    """Native fill + backtrack; returns (score, walk-order path codes)
+    or None if no lib.  The direction matrix never crosses into Python
+    (see csa_host.cpp::csa_dp_fill_path)."""
+    lib = _load()
+    if lib is None:
+        return None
+    R = len(row_codes)
+    C = len(scorevector)
+    codes = np.ascontiguousarray(row_codes, dtype=np.int8)
+    sv = np.ascontiguousarray(scorevector, dtype=np.int32)
+    top = np.ascontiguousarray(top_row, dtype=np.int32)
+    path = np.empty(R + C, dtype=np.int8)
+    plen = np.zeros(1, dtype=np.int32)
+    score = lib.csa_dp_fill_path(
+        codes.ctypes.data, R, sv.ctypes.data, C, int(i),
+        top.ctypes.data, int(edge_rowgap),
+        path.ctypes.data, plen.ctypes.data,
+    )
+    if int(plen[0]) == 0 and (R or C):
+        return None  # scratch allocation failure: use the numpy twin
+    return int(score), path[: int(plen[0])]
+
+
+def dgc(usableseqs, strings, numseqs, scorevector, consize, maxnongaps):
+    """Native DeleteGappedColumns; returns the new consize or None.
+
+    Packs the logical [0, consize) window of the usable rows into one
+    contiguous matrix, runs csa_dgc in place, and copies the results back
+    into the caller's per-sequence arrays and (int64) scorevector.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    packed = np.empty((numseqs, max(consize, 1)), dtype=np.int8)
+    for t in range(numseqs):
+        packed[t, :consize] = strings[usableseqs[t]][:consize]
+    sv32 = np.ascontiguousarray(scorevector[:consize], dtype=np.int32)
+    new_consize = lib.csa_dgc(
+        packed.ctypes.data, numseqs, packed.shape[1],
+        sv32.ctypes.data, consize, maxnongaps,
+    )
+    for t in range(numseqs):
+        strings[usableseqs[t]][:consize] = packed[t, :consize]
+    scorevector[:consize] = sv32
+    return int(new_consize)
+
+
+class NativeRotationBlocks:
+    """Result of the native rotation block stage (csa_rotation_analyze);
+    field-compatible with :class:`csa_jax.index.engine.RotationBlocks`."""
+
+    __slots__ = (
+        "start", "end", "depth", "keep_suffix", "unique", "positions",
+        "num_collected",
+    )
+
+
+def rotation_analyze(encoded, max_blocks: int = 8192):
+    """Native host rotation block stage: cyclic suffix array + capped LCP
+    (cyclic Kasai) + lcp-interval block collection + suffix/uniqueness
+    filters, bit-identical to the numpy engine (csa_jax/index/cyclic.py).
+    Returns a NativeRotationBlocks or None when the library is missing.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    k = len(encoded)
+    offsets = np.zeros(k + 1, dtype=np.int64)
+    np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    codes = np.concatenate(
+        [np.asarray(e, dtype=np.int8) for e in encoded]
+    )
+    while True:
+        counts = np.zeros(4, dtype=np.int32)
+        bstart = np.empty(max_blocks, dtype=np.int32)
+        bend = np.empty(max_blocks, dtype=np.int32)
+        bdepth = np.empty(max_blocks, dtype=np.int32)
+        keep = np.empty(max_blocks, dtype=np.uint8)
+        uniq = np.empty(max_blocks, dtype=np.uint8)
+        positions = np.empty((max_blocks, k), dtype=np.int64)
+        rc = lib.csa_rotation_analyze(
+            codes.ctypes.data, offsets.ctypes.data, k, max_blocks,
+            counts.ctypes.data, bstart.ctypes.data, bend.ctypes.data,
+            bdepth.ctypes.data, keep.ctypes.data, uniq.ctypes.data,
+            positions.ctypes.data,
+        )
+        if rc == 0:
+            break
+        max_blocks = int(rc) + 1024  # needed block count; retry bigger
+    nb = int(counts[1])
+    out = NativeRotationBlocks()
+    out.num_collected = nb
+    out.start = bstart[:nb].astype(np.int64)
+    out.end = bend[:nb].astype(np.int64)
+    out.depth = bdepth[:nb].astype(np.int64)
+    out.keep_suffix = keep[:nb].astype(bool)
+    out.unique = uniq[:nb].astype(bool)
+    out.positions = positions[:nb]
+    return out
+
+
+def linear_index(s: np.ndarray, sigma: int):
+    """Suffix array + adjacent LCPs of one int string with embedded
+    unique separators (values in [0, sigma)); returns (sa, lcp) int32
+    arrays or None when the library is missing."""
+    lib = _load()
+    if lib is None:
+        return None
+    ss = np.ascontiguousarray(s, dtype=np.int32)
+    total = len(ss)
+    sa = np.empty(total, dtype=np.int32)
+    lcp = np.empty(total, dtype=np.int32)
+    lib.csa_linear_index(
+        ss.ctypes.data, total, int(sigma), sa.ctypes.data, lcp.ctypes.data
+    )
+    return sa, lcp
+
+
+def anchor_attach(seq_of: np.ndarray, lcp: np.ndarray, cap: np.ndarray,
+                  k: int):
+    """Native mstat/attachment stats over the linear suffix index;
+    returns (att, lb2) int64 arrays or None if no lib (numpy twin in
+    csa_jax/align/anchors.py)."""
+    lib = _load()
+    if lib is None:
+        return None
+    m = len(lcp)
+    s32 = np.ascontiguousarray(seq_of, dtype=np.int32)
+    l32 = np.ascontiguousarray(lcp, dtype=np.int32)
+    c32 = np.ascontiguousarray(cap, dtype=np.int32)
+    att = np.empty(m, dtype=np.int32)
+    lb2 = np.empty(m, dtype=np.int32)
+    lib.csa_anchor_attach(
+        s32.ctypes.data, l32.ctypes.data, c32.ctypes.data, int(k), m,
+        att.ctypes.data, lb2.ctypes.data,
+    )
+    return att.astype(np.int64), lb2.astype(np.int64)
+
+
+def pairwise_nw(a: np.ndarray, b: np.ndarray):
+    lib = _load()
+    if lib is None:
+        return None
+    aa = np.ascontiguousarray(a, dtype=np.int8)
+    bb = np.ascontiguousarray(b, dtype=np.int8)
+    return int(lib.csa_pairwise_nw(aa.ctypes.data, len(aa), bb.ctypes.data, len(bb)))

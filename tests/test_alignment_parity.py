@@ -12,9 +12,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from csa_tpu.align import anchors, runner
-from csa_tpu.io import fasta as fio
-from csa_tpu.rotation import pipeline as rot
+from csa_jax.align import anchors, runner
+from csa_jax.io import fasta as fio
+from csa_jax.rotation import pipeline as rot
 
 TINY = pathlib.Path(__file__).parent / "fixtures" / "tiny"
 SEEDS = [1, 3, 4, 6, 8]
@@ -78,7 +78,7 @@ def test_border_nodes_have_all_sequences(seed):
 
 def test_alignment_integrity_roundtrip(tmp_path):
     """The aligned strings minus gaps must equal the rotated inputs."""
-    from csa_tpu.tools import files
+    from csa_jax.tools import files
 
     base = TINY / "t1"
     seqs = fio.load_fasta(str(base) + ".txt", log=io.StringIO())
@@ -122,8 +122,8 @@ def test_primates_full_alignment_content_identical(tmp_path):
 
 
 @pytest.mark.skipif(
-    not __import__("os").environ.get("CSA_TPU_SLOW_TESTS"),
-    reason="set CSA_TPU_SLOW_TESTS=1 for the large acceptance sets",
+    not __import__("os").environ.get("CSA_SLOW_TESTS"),
+    reason="set CSA_SLOW_TESTS=1 for the large acceptance sets",
 )
 @pytest.mark.parametrize("name", ["Mammals", "Set3"])
 def test_mammals_full_alignment_content_identical(tmp_path, name):
@@ -147,8 +147,8 @@ def test_mammals_full_alignment_content_identical(tmp_path, name):
 
 
 @pytest.mark.skipif(
-    not __import__("os").environ.get("CSA_TPU_SLOW_TESTS"),
-    reason="set CSA_TPU_SLOW_TESTS=1 for the large acceptance sets",
+    not __import__("os").environ.get("CSA_SLOW_TESTS"),
+    reason="set CSA_SLOW_TESTS=1 for the large acceptance sets",
 )
 def test_set3_jax_backend_end_to_end_identical(tmp_path):
     """Rotation AND alignment through the jax backend (on the test CPU
@@ -181,7 +181,7 @@ def test_blocked_his_matches_brute_force():
     large enough to force multiple block splits."""
     import numpy as np
 
-    from csa_tpu.align import machine
+    from csa_jax.align import machine
 
     rng = np.random.default_rng(42)
     k = 3

@@ -1,4 +1,4 @@
-"""Device linear suffix index vs the exact numpy twin (VERDICT r1 item 6).
+"""Device linear suffix index vs the exact numpy twin.
 
 The alignment phase's anchor discovery (border nodes; reference
 morenodeslinkedlists.c:303-326) must produce identical results whether
@@ -10,9 +10,9 @@ import io
 
 import numpy as np
 
-from csa_tpu.align import anchors
-from csa_tpu.io import fasta as fio
-from csa_tpu.rotation import pipeline as rot
+from csa_jax.align import anchors
+from csa_jax.io import fasta as fio
+from csa_jax.rotation import pipeline as rot
 
 
 def _random_rotated(k=5, n=180, seed=13):

@@ -12,7 +12,7 @@ import pathlib
 import subprocess
 import sys
 
-from csa_tpu.io.fasta import load_fasta, discard_duplicate_rotations
+from csa_jax.io.fasta import load_fasta, discard_duplicate_rotations
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -49,7 +49,7 @@ def test_blocks_csv_parity(fixtures_dir, tmp_path):
     src = tmp_path / "Primates.txt"
     src.write_text((fixtures_dir / "Primates.txt").read_text())
     proc = subprocess.run(
-        [sys.executable, "-m", "csa_tpu.cli", "R", str(src)],
+        [sys.executable, "-m", "csa_jax.cli", "R", str(src)],
         capture_output=True,
         text=True,
         cwd=tmp_path,
@@ -87,7 +87,7 @@ def test_blocks_csv_parity(fixtures_dir, tmp_path):
     assert sorted(got_pos) == sorted(want_pos)
 
     # BMP is structurally valid
-    from csa_tpu.report.bmp import read_bmp_info
+    from csa_jax.report.bmp import read_bmp_info
 
     info = read_bmp_info(str(tmp_path / "Primates-Blocks.bmp"))
     assert info["magic"] == "BM" and info["bpp"] == 8
@@ -98,7 +98,7 @@ def test_ring_pixels_vectorized_exact():
     walk (graphics.c:1443-1702 semantics) pixel for pixel, in order."""
     import numpy as np
 
-    from csa_tpu.report import circular_plot as cp
+    from csa_jax.report import circular_plot as cp
 
     for r in (16, 17, 50, 99, 100, 137, 256, 401):
         sx, sy = cp._ring_pixels_scalar(r)
@@ -113,7 +113,7 @@ def test_rle8_vectorized_exact():
     00 00 end-of-line, 00 01 end-of-bitmap)."""
     import numpy as np
 
-    from csa_tpu.report.bmp import _rle8_encode
+    from csa_jax.report.bmp import _rle8_encode
 
     def serial(indices):
         h, w = indices.shape
@@ -147,7 +147,7 @@ def test_palette_hint_matches_generic_path():
     as the np.unique path; a wrong hint must fall back, not corrupt."""
     import numpy as np
 
-    from csa_tpu.report.bmp import _build_palette
+    from csa_jax.report.bmp import _build_palette
 
     rng = np.random.default_rng(1)
     colors = [(0, 0, 0), (255, 255, 255), (10, 200, 30), (1, 2, 3)]

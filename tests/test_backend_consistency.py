@@ -1,6 +1,6 @@
 """numpy vs jax rotation-backend consistency.
 
-The fused device program (csa_tpu/index/engine.py full_rotation_program)
+The fused device program (csa_jax/index/engine.py full_rotation_program)
 must produce the same block cascade and the same final rotations as the
 exact numpy engine on any input.  Runs on the virtual CPU device mesh
 (tests/conftest.py); bench.py exercises the same path on the real chip.
@@ -12,8 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from csa_tpu.io.fasta import SequenceSet
-from csa_tpu.rotation.pipeline import analyze
+from csa_jax.io.fasta import SequenceSet
+from csa_jax.rotation.pipeline import analyze
 
 ALPH = "ACGT"
 
@@ -49,8 +49,8 @@ def test_backends_agree_small(seed, k, n):
 
 
 @pytest.mark.skipif(
-    not os.environ.get("CSA_TPU_SLOW_TESTS"),
-    reason="set CSA_TPU_SLOW_TESTS=1 for the plasmid-scale consistency run",
+    not os.environ.get("CSA_SLOW_TESTS"),
+    reason="set CSA_SLOW_TESTS=1 for the plasmid-scale consistency run",
 )
 def test_backends_agree_plasmid_scale():
     seqs = _synthetic_set(42, 6, 20_000, mut_frac=0.01)
@@ -59,11 +59,11 @@ def test_backends_agree_plasmid_scale():
 
 
 @pytest.mark.skipif(
-    not os.environ.get("CSA_TPU_SLOW_TESTS"),
-    reason="set CSA_TPU_SLOW_TESTS=1 for the 8x100kbp sharded parity run",
+    not os.environ.get("CSA_SLOW_TESTS"),
+    reason="set CSA_SLOW_TESTS=1 for the 8x100kbp sharded parity run",
 )
 def test_sharded_agrees_at_100kbp_scale():
-    """VERDICT r1 item 3/4: numpy vs sharded parity on a synthetic
+    """Numpy vs sharded parity on a synthetic
     8 x 100 kbp circular set over the 8-device CPU mesh."""
     seqs = _synthetic_set(17, 8, 100_000, mut_frac=0.005)
     a = analyze(seqs, log=io.StringIO(), backend="numpy")
@@ -75,7 +75,7 @@ def test_sharded_agrees_at_100kbp_scale():
 
 
 def test_backends_agree_on_real_set(fixtures_dir):
-    from csa_tpu.io.fasta import load_fasta
+    from csa_jax.io.fasta import load_fasta
 
     seqs = load_fasta(fixtures_dir / "Primates.txt", log=io.StringIO())
     a, b = _run_both(seqs)

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from csa_tpu.index import engine
-from csa_tpu.parallel import collect_sharded, dsort_ladder
+from csa_jax.index import engine
+from csa_jax.parallel import collect_sharded, dsort_ladder
 
 
 def _circular_set(k, n, seed, noise=200):

@@ -2,15 +2,15 @@
 
 SURVEY.md §5 config row: the reference compiles its scoring in
 (dynamicprogramming.c:16-19); the framework exposes it via
-csa_tpu.config.Scoring / the --match/--mismatch/--indel/--doublegap CLI
+csa_jax.config.Scoring / the --match/--mismatch/--indel/--doublegap CLI
 flags, threaded through the numpy, native-C++, and device backends.
 """
 
 import numpy as np
 import pytest
 
-from csa_tpu import config, native
-from csa_tpu.align import progressive
+from csa_jax import config, native
+from csa_jax.align import progressive
 
 
 @pytest.fixture
@@ -69,7 +69,7 @@ def test_scoring_reaches_device_rowscan(restore_scoring):
     must match the numpy matrices under a non-default matrix (the
     progressive_dp jax route only engages for >= DEVICE_MIN_CELLS merges,
     so exercise the device program directly)."""
-    from csa_tpu.dp import wavefront
+    from csa_jax.dp import wavefront
 
     rng = np.random.default_rng(9)
     config.set_scoring(NON_DEFAULT)

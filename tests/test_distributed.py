@@ -4,19 +4,18 @@ import os
 
 import pytest
 
-from csa_tpu.parallel import distributed
+from csa_jax.parallel import distributed
 
 
 def test_initialize_noop_without_coordinator(monkeypatch):
-    """No coordinator flag/env and no pod metadata -> quiet
-    single-process fallback (returns False, touches nothing)."""
-    monkeypatch.delenv("CSA_TPU_COORDINATOR", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
+    """No coordinator flag/env -> quiet single-process fallback
+    (returns False, touches nothing)."""
+    monkeypatch.delenv("CSA_COORDINATOR", raising=False)
     assert distributed.initialize() is False
 
 
 def test_env_values_parsed(monkeypatch):
-    """CSA_TPU_* env values reach jax.distributed.initialize."""
+    """CSA_* env values reach jax.distributed.initialize."""
     seen = {}
 
     class FakeDist:
@@ -31,9 +30,9 @@ def test_env_values_parsed(monkeypatch):
 
     import jax
 
-    monkeypatch.setenv("CSA_TPU_COORDINATOR", "h0:1234")
-    monkeypatch.setenv("CSA_TPU_NUM_PROCESSES", "3")
-    monkeypatch.setenv("CSA_TPU_PROCESS_ID", "1")
+    monkeypatch.setenv("CSA_COORDINATOR", "h0:1234")
+    monkeypatch.setenv("CSA_NUM_PROCESSES", "3")
+    monkeypatch.setenv("CSA_PROCESS_ID", "1")
     monkeypatch.setattr(jax, "distributed", FakeDist)
     monkeypatch.setattr(jax, "process_count", lambda: 3, raising=False)
     assert distributed.initialize() is True
@@ -43,8 +42,8 @@ def test_env_values_parsed(monkeypatch):
 
 
 @pytest.mark.skipif(
-    not os.environ.get("CSA_TPU_SLOW_TESTS"),
-    reason="set CSA_TPU_SLOW_TESTS=1 for the multi-process dryrun",
+    not os.environ.get("CSA_SLOW_TESTS"),
+    reason="set CSA_SLOW_TESTS=1 for the multi-process dryrun",
 )
 def test_multiprocess_dryrun_parity():
     res = distributed.run_multiprocess_dryrun()

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from csa_tpu import native
-from csa_tpu.align import progressive
-from csa_tpu.dp import wavefront
+from csa_jax import native
+from csa_jax.align import progressive
+from csa_jax.dp import wavefront
 
 
 def _random_profile(rng, C, i):
@@ -85,11 +85,11 @@ def test_progressive_dp_backend_jax_identical():
     a = progressive.progressive_dp([g.copy() for g in gaps], dp_backend="numpy")
     import os
 
-    os.environ["CSA_TPU_DEVICE_MIN_CELLS"] = "1"  # force merges on device
+    os.environ["CSA_DEVICE_MIN_CELLS"] = "1"  # force merges on device
     try:
         b = progressive.progressive_dp([g.copy() for g in gaps], dp_backend="jax")
     finally:
-        del os.environ["CSA_TPU_DEVICE_MIN_CELLS"]
+        del os.environ["CSA_DEVICE_MIN_CELLS"]
     assert all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
@@ -123,9 +123,9 @@ def test_run_alignment_deferred_batch_byte_identical(fixtures_dir):
     byte-match the host path on a real set."""
     import io
 
-    from csa_tpu.align import runner
-    from csa_tpu.io import fasta as fio
-    from csa_tpu.rotation import pipeline as rot
+    from csa_jax.align import runner
+    from csa_jax.io import fasta as fio
+    from csa_jax.rotation import pipeline as rot
 
     seqs = fio.load_fasta(str(fixtures_dir / "Primates.txt"), log=io.StringIO())
     res = rot.analyze(seqs, log=io.StringIO(), backend="numpy")

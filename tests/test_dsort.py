@@ -11,7 +11,7 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from csa_tpu.parallel import dsort
+from csa_jax.parallel import dsort
 
 
 def _mesh(n):

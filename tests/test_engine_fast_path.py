@@ -7,8 +7,8 @@ import pytest
 
 import jax
 
-from csa_tpu.index import cyclic, engine
-from csa_tpu.rotation import pipeline as rot
+from csa_jax.index import cyclic, engine
+from csa_jax.rotation import pipeline as rot
 
 
 def _shared_core_set(rng, k=5, core_len=120):
@@ -65,7 +65,7 @@ def test_rotation_final_cap_retry():
 
 
 def test_rotation_final_gspmd_mesh_parity():
-    from csa_tpu.parallel import sharded
+    from csa_jax.parallel import sharded
 
     rng = np.random.default_rng(9)
     enc = _shared_core_set(rng, k=8)
@@ -87,8 +87,8 @@ def test_rotation_final_duplicate_fallback():
 
 
 def test_auto_backend_size_policy(monkeypatch):
-    monkeypatch.delenv("CSA_TPU_AUTO_DEVICE_MIN", raising=False)
-    from csa_tpu import native
+    monkeypatch.delenv("CSA_AUTO_DEVICE_MIN", raising=False)
+    from csa_jax import native
 
     if native.available():
         assert rot.resolve_auto_backend(100_000) == "native"

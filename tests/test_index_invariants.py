@@ -6,7 +6,7 @@ random, periodic, and degenerate inputs — both engine backends.
 import numpy as np
 import pytest
 
-from csa_tpu.index import cyclic, engine, verify
+from csa_jax.index import cyclic, engine, verify
 
 
 def _check(encoded):

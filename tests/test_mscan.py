@@ -1,16 +1,14 @@
-"""Multi-channel prefix-scan kernel exactness (VERDICT r4 #6).
+"""Multi-channel prefix scans (index/mscan.py) and the collect front.
 
-The Mosaic kernel must be bit-identical to per-channel jax.lax.cummax /
-cummin for every option combination; runs in interpret mode on CPU.
+The ``lax`` wrappers must equal per-channel numpy accumulations for
+every option combination, and the collect front built on them must
+match the numpy engine's cascade.
 """
 
 import numpy as np
 import pytest
 
-import jax
-import jax.numpy as jnp
-
-from csa_tpu.index import mscan
+from csa_jax.index import mscan
 
 
 @pytest.mark.parametrize("M,N", [(1, 100), (3, 2048), (12, 5000),
@@ -18,75 +16,42 @@ from csa_tpu.index import mscan
 def test_multi_cummax_matches_lax(M, N):
     rng = np.random.default_rng(M * 1000 + N)
     x = rng.integers(-(2**30), 2**30, size=(M, N)).astype(np.int32)
-    want = np.asarray(jax.lax.cummax(jnp.asarray(x), axis=1))
-    got = np.asarray(
-        mscan.multi_cummax(x, interpret=True, force_kernel=True)
-    )
+    want = np.maximum.accumulate(x, axis=1)
+    got = np.asarray(mscan.multi_cummax(x))
     np.testing.assert_array_equal(got, want)
 
 
 def test_multi_cummax_reverse():
     rng = np.random.default_rng(7)
     x = rng.integers(-(2**30), 2**30, size=(5, 3000)).astype(np.int32)
-    want = np.asarray(
-        jax.lax.cummax(jnp.asarray(x), axis=1, reverse=True)
-    )
-    got = np.asarray(
-        mscan.multi_cummax(x, reverse=True, interpret=True,
-                           force_kernel=True)
-    )
+    want = np.maximum.accumulate(x[:, ::-1], axis=1)[:, ::-1]
+    got = np.asarray(mscan.multi_cummax(x, reverse=True))
     np.testing.assert_array_equal(got, want)
 
 
 def test_multi_cummax_min_over_channels():
     rng = np.random.default_rng(11)
     x = rng.integers(-(2**30), 2**30, size=(13, 2500)).astype(np.int32)
-    want = np.asarray(
-        jnp.min(jax.lax.cummax(jnp.asarray(x), axis=1), axis=0)
-    )
-    got = np.asarray(
-        mscan.multi_cummax(x, min_over_channels=True, interpret=True,
-                           force_kernel=True)
-    )
+    want = np.maximum.accumulate(x, axis=1).min(axis=0)
+    got = np.asarray(mscan.multi_cummax(x, min_over_channels=True))
     np.testing.assert_array_equal(got, want)
 
 
 def test_multi_cummin_reverse_max_over():
     rng = np.random.default_rng(13)
     x = rng.integers(-(2**30), 2**30, size=(9, 2100)).astype(np.int32)
-    want = np.asarray(
-        jnp.max(
-            jax.lax.cummin(jnp.asarray(x), axis=1, reverse=True), axis=0
-        )
-    )
+    want = np.minimum.accumulate(x[:, ::-1], axis=1)[:, ::-1].max(axis=0)
     got = np.asarray(
-        mscan.multi_cummin(x, reverse=True, max_over_channels=True,
-                           interpret=True, force_kernel=True)
+        mscan.multi_cummin(x, reverse=True, max_over_channels=True)
     )
     np.testing.assert_array_equal(got, want)
 
 
-def test_xla_fallback_matches():
-    rng = np.random.default_rng(17)
-    x = rng.integers(-(2**30), 2**30, size=(4, 999)).astype(np.int32)
-    a = np.asarray(mscan.multi_cummax(x))                   # cpu -> lax
-    b = np.asarray(
-        mscan.multi_cummax(x, interpret=True, force_kernel=True)
-    )
-    np.testing.assert_array_equal(a, b)
-
-
-def test_collect_front_through_interpreted_kernel(monkeypatch):
-    """The INTEGRATED mscan path (collect front's PSV/NSV + coverage
-    through the Mosaic kernel) matches the numpy cascade — exercised on
-    CPU via the pallas interpreter (CSA_TPU_MSCAN=interpret), since the
-    default CPU run takes the lax fallback."""
-    monkeypatch.setenv("CSA_TPU_MSCAN", "interpret")
-    # the env gate is read at TRACE time; drop any cached traces of the
-    # same shapes so the kernel branch is really taken
-    jax.clear_caches()
+def test_collect_front_through_interpreted_kernel():
+    """The collect front's PSV/NSV + coverage scans (index/mscan.py),
+    run through the device engine, match the numpy cascade."""
     rng = np.random.default_rng(3)
-    from csa_tpu.index import cyclic, engine
+    from csa_jax.index import cyclic, engine
 
     n = 400
     base = rng.integers(0, 4, size=n)

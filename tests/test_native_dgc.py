@@ -1,6 +1,6 @@
 """Native DeleteGappedColumns (csa_host.cpp::csa_dgc) vs the numpy twin.
 
-The numpy implementation in csa_tpu/align/progressive.py is the verified
+The numpy implementation in csa_jax/align/progressive.py is the verified
 exactness reference (byte-identical alignments vs the compiled reference
 CSA on Primates/Mammals/Set3); the native kernel must match it bit for
 bit on arbitrary gapped profiles.
@@ -9,8 +9,8 @@ bit on arbitrary gapped profiles.
 import numpy as np
 import pytest
 
-from csa_tpu import native
-from csa_tpu.align import progressive
+from csa_jax import native
+from csa_jax.align import progressive
 
 
 def _random_profile(rng, numseqs, consize, gap_frac):

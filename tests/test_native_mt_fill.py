@@ -11,8 +11,8 @@ The csa_set_mt_threshold knob forces each path regardless of shape.
 import numpy as np
 import pytest
 
-from csa_tpu import native
-from csa_tpu.align.progressive import default_top_row
+from csa_jax import native
+from csa_jax.align.progressive import default_top_row
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib not built"

@@ -1,7 +1,7 @@
 """Native C++ rotation engine vs the numpy exactness twin.
 
 The native engine (csa_host.cpp::csa_rotation_analyze) must reproduce the
-numpy cyclic suffix-array engine (csa_tpu/index/cyclic.py) bit for bit:
+numpy cyclic suffix-array engine (csa_jax/index/cyclic.py) bit for bit:
 collected block intervals, suffix filter, uniqueness, and first-occurrence
 positions — including degenerate periodic inputs (duplicate rotations,
 homopolymers) that the reference tree handles via leaf sharing
@@ -13,9 +13,9 @@ import io
 import numpy as np
 import pytest
 
-from csa_tpu import native
-from csa_tpu.index import cyclic
-from csa_tpu.io import fasta as fio
+from csa_jax import native
+from csa_jax.index import cyclic
+from csa_jax.io import fasta as fio
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable"
@@ -80,7 +80,7 @@ def test_tiny_inputs():
 
 def test_primates_pipeline_rotations_native(fixtures_dir):
     """Full analyze(backend='native') bit-identical rotations on Primates."""
-    from csa_tpu.rotation import pipeline as rot
+    from csa_jax.rotation import pipeline as rot
 
     seqs = fio.load_fasta(str(fixtures_dir / "Primates.txt"), log=io.StringIO())
     res_nat = rot.analyze(seqs, log=io.StringIO(), backend="native")

@@ -9,13 +9,13 @@ import io
 
 import pytest
 
-from csa_tpu.io.fasta import (
+from csa_jax.io.fasta import (
     load_fasta,
     discard_duplicate_rotations,
     parse_rotated_header,
     rotate_text,
 )
-from csa_tpu.rotation.pipeline import analyze
+from csa_jax.rotation.pipeline import analyze
 
 CASCADES = {
     # collected, after-suffix-filter, after-unique-filter, chains
@@ -69,8 +69,8 @@ def test_rotation_parity(fixtures_dir, name):
 def test_chain_cycle_surfaces_as_rotation_error(fixtures_dir, monkeypatch):
     """A cycle in the successor links (reference: infinite loop/segfault)
     must surface as a clean RotationError, not a raw RuntimeError."""
-    from csa_tpu.rotation import chains as chains_mod
-    from csa_tpu.rotation import pipeline as pipeline_mod
+    from csa_jax.rotation import chains as chains_mod
+    from csa_jax.rotation import pipeline as pipeline_mod
 
     def boom(*a, **k):
         raise chains_mod.ChainCycleError("synthetic cycle")
@@ -90,7 +90,7 @@ def test_chain_cycle_detected_linear_time():
     synthetic parity tests)."""
     import numpy as np
 
-    from csa_tpu.rotation import chains as chains_mod
+    from csa_jax.rotation import chains as chains_mod
 
     nb = 5000
     blocks = [
@@ -110,7 +110,7 @@ def test_chain_absorb_previous_head_still_works():
     (csamsa.c:202-211) and is not misdiagnosed as a cycle."""
     import numpy as np
 
-    from csa_tpu.rotation import chains as chains_mod
+    from csa_jax.rotation import chains as chains_mod
 
     # list order: A (head of A->B), then C with C->A
     a = chains_mod.Block(depth=5, positions=np.array([0, 0]))
@@ -129,10 +129,10 @@ def test_chain_cross_walk_revisit_is_not_a_cycle():
     """A block absorbed mid-chain by an EARLIER walk that a later walk
     reaches again (successor in-degree >= 2, which link_blocks can
     produce) is re-absorbed like csamsa.c:216-226, not misdiagnosed as a
-    cycle (ADVICE r4: X->C->T walked first, then Y->C must not raise)."""
+    cycle (X->C->T walked first, then Y->C must not raise)."""
     import numpy as np
 
-    from csa_tpu.rotation import chains as chains_mod
+    from csa_jax.rotation import chains as chains_mod
 
     x = chains_mod.Block(depth=6, positions=np.array([0, 0]))
     y = chains_mod.Block(depth=5, positions=np.array([40, 40]))

@@ -1,15 +1,14 @@
-"""The Pallas rotation-verification oracle (SURVEY.md §7 M1 consumer).
+"""The rotation-verification oracle (SURVEY.md §7 M1 consumer).
 
-Runs the kernel in interpret mode on CPU; exactness of the compiled
-kernel vs the host scores is covered by tests/test_pallas_nw.py and the
-full-batch check in bench.py.
+Exactness of the batched NW scores vs the host kernel is covered by
+tests/test_pallas_nw.py; these tests pin the oracle's verdicts.
 """
 
 import io
 
 import numpy as np
 
-from csa_tpu.rotation import verification
+from csa_jax.rotation import verification
 
 
 def _family(k=4, n=96, seed=5):
@@ -31,9 +30,7 @@ def test_correct_rotations_confirmed():
     encoded, shifts = _family()
     # rolling row i by -shift restores base alignment: rotation = shift
     sink = io.StringIO()
-    res = verification.verify_rotations(
-        encoded, shifts, log=sink, interpret=True
-    )
+    res = verification.verify_rotations(encoded, shifts, log=sink)
     assert res.num_checked == len(encoded) - 1
     assert res.all_confirmed, res.margins
     assert "confirmed" in sink.getvalue()
@@ -45,14 +42,14 @@ def test_wrong_rotation_flagged():
     wrong[2] = (shifts[2] + len(encoded[2]) // 2) % len(encoded[2])
     sink = io.StringIO()
     res = verification.verify_rotations(
-        encoded, wrong, samples=5, log=sink, interpret=True
+        encoded, wrong, samples=5, log=sink
     )
     assert not res.all_confirmed
     assert "WARNING" in sink.getvalue()
 
 
 def test_cli_flag_reaches_oracle(tmp_path, fixtures_dir, monkeypatch):
-    # tiny synthetic FASTA so interpret-mode cost stays trivial
+    # tiny synthetic FASTA keeps the oracle's cost trivial
     encoded, shifts = _family(k=3, n=64, seed=2)
     chars = np.frombuffer(b"ACGT", dtype=np.uint8)
     fasta = tmp_path / "fam.fasta"
@@ -61,18 +58,17 @@ def test_cli_flag_reaches_oracle(tmp_path, fixtures_dir, monkeypatch):
             f.write(f">s{i}\n{chars[e].tobytes().decode()}\n")
 
     calls = {}
-    from csa_tpu.dp import pallas_nw
+    from csa_jax.dp import nw
 
-    real = pallas_nw.pairwise_nw_scores
+    real = nw.pairwise_nw_scores
 
-    def spy(a, b, **kw):
+    def spy(a, b):
         calls["n"] = calls.get("n", 0) + 1
-        kw["interpret"] = True  # CPU test environment
-        return real(a, b, **kw)
+        return real(a, b)
 
-    monkeypatch.setattr(pallas_nw, "pairwise_nw_scores", spy)
+    monkeypatch.setattr(nw, "pairwise_nw_scores", spy)
     monkeypatch.chdir(tmp_path)
-    from csa_tpu import cli
+    from csa_jax import cli
 
     rc = cli.main(["R", str(fasta), "--verify-rotations"])
     assert rc == 0

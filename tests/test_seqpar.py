@@ -10,9 +10,9 @@ import pytest
 
 import jax
 
-from csa_tpu import config
-from csa_tpu.align import progressive
-from csa_tpu.dp import seqpar
+from csa_jax import config
+from csa_jax.align import progressive
+from csa_jax.dp import seqpar
 
 
 def _mesh(n):
@@ -22,7 +22,7 @@ def _mesh(n):
 
 
 def _numpy_dirs(row_codes, sv, i):
-    from csa_tpu import native
+    from csa_jax import native
 
     lib, tried = native._lib, native._tried
     try:
@@ -112,7 +112,7 @@ def test_batched_giants_route_to_seqpar(monkeypatch):
     # batch and onto the giant path
     monkeypatch.setattr(progressive, "BATCH_DIRS_CAP", 1)
     calls = {"n": 0}
-    from csa_tpu.dp import seqpar as seqpar_mod
+    from csa_jax.dp import seqpar as seqpar_mod
 
     real = seqpar_mod.dp_path_seqpar
 
@@ -135,11 +135,8 @@ def test_batched_giants_route_to_seqpar(monkeypatch):
 
 @pytest.mark.parametrize("n_dev", [2, 4, 8])
 def test_band_pallas_path_matches_numpy(n_dev):
-    """The Pallas band-kernel seqpar path (VERDICT r4 #1: the Mosaic
-    kernel under the halo-exchange mesh) reproduces the numpy walk
-    bit-exactly at every mesh size (interpret mode on the CPU mesh)."""
-    from csa_tpu.dp import pallas_band
-
+    """The seqpar path (fill + device backtrack) at band_rows=32
+    reproduces the numpy walk bit-exactly at every mesh size."""
     rng = np.random.default_rng(100 + n_dev)
     R = int(rng.integers(40, 200))
     C = int(rng.integers(60, 300))
@@ -148,17 +145,14 @@ def test_band_pallas_path_matches_numpy(n_dev):
     sv = rng.integers(0, 3, size=(C, 5)).astype(np.int64)
     dirs_ref = _numpy_dirs(codes, sv, i)
     want = progressive._dirs_to_maps(dirs_ref, R, C)
-    path = pallas_band.dp_path_band_pallas(
-        codes, sv, i, mesh=_mesh(n_dev), band_rows=32, interpret=True
-    )
+    path = seqpar.dp_path_seqpar(codes, sv, i, mesh=_mesh(n_dev),
+                                 band_rows=32)
     got = progressive._path_to_maps(path)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
 
 
 def test_band_pallas_non_default_scoring():
-    from csa_tpu.dp import pallas_band
-
     rng = np.random.default_rng(7)
     codes = rng.integers(0, 4, size=90).astype(np.int8)
     sv = rng.integers(0, 3, size=(140, 5)).astype(np.int64)
@@ -168,9 +162,8 @@ def test_band_pallas_non_default_scoring():
     try:
         dirs_ref = _numpy_dirs(codes, sv, i)
         want = progressive._dirs_to_maps(dirs_ref, 90, 140)
-        path = pallas_band.dp_path_band_pallas(
-            codes, sv, i, mesh=_mesh(4), band_rows=32, interpret=True
-        )
+        path = seqpar.dp_path_seqpar(codes, sv, i, mesh=_mesh(4),
+                                     band_rows=32)
         got = progressive._path_to_maps(path)
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
@@ -181,10 +174,9 @@ def test_band_pallas_non_default_scoring():
 def test_band_pallas_stale_boundaries():
     """Arbitrary (stale) top_row / edge_rowgap boundaries — the
     reference reuses dp edges between same-shape merges
-    (dynamicprogramming.c:957-987) — flow through the band kernel's
-    lb/topv injection exactly."""
-    from csa_tpu.dp import pallas_band
-    from csa_tpu.dp import wavefront
+    (dynamicprogramming.c:957-987) — flow through the seqpar halo
+    path exactly."""
+    from csa_jax.dp import wavefront
 
     rng = np.random.default_rng(23)
     R, C, i = 70, 180, 6
@@ -192,10 +184,10 @@ def test_band_pallas_stale_boundaries():
     sv = rng.integers(0, 3, size=(C, 5)).astype(np.int64)
     top = rng.integers(-500, 500, size=C + 1).astype(np.int64)
     erg = -11
-    want = wavefront.dp_path_device(codes, sv, i, top_row=top,
-                                    edge_rowgap=erg)
-    path = pallas_band.dp_path_band_pallas(
+    want = wavefront.dp_path_rowscan(codes, sv, i, top_row=top,
+                                     edge_rowgap=erg)
+    path = seqpar.dp_path_seqpar(
         codes, sv, i, mesh=_mesh(8), band_rows=32, top_row=top,
-        edge_rowgap=erg, interpret=True
+        edge_rowgap=erg,
     )
     np.testing.assert_array_equal(path, want)

@@ -4,7 +4,7 @@ import io
 import pathlib
 import shutil
 
-from csa_tpu.tools import files
+from csa_jax.tools import files
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 

@@ -7,7 +7,7 @@ import uuid
 
 import pytest
 
-from csa_tpu.web import app as webapp
+from csa_jax.web import app as webapp
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 
@@ -81,3 +81,31 @@ def test_rejects_empty(server):
     except urllib.error.HTTPError as e:
         raised = e.code == 400
     assert raised
+
+
+def test_device_jobs_take_the_device_lock(tmp_path, monkeypatch):
+    """Uploads large enough for `auto` to pick the device engine run
+    their child under the device lock; small ones do not."""
+    import subprocess
+
+    from csa_jax.rotation import pipeline
+
+    seen = []
+
+    def fake_run(*a, **k):
+        seen.append(webapp._DEVICE_LOCK.locked())
+        raise subprocess.TimeoutExpired(a[0], 1)
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    fasta = tmp_path / "s.fasta"
+    fasta.write_text(">a\nACGTACGT\nACGT\n>b\nTTTT\n")
+    assert webapp._sequence_chars(str(fasta)) == 16
+    for threshold, locked in [("1000", False), ("10", True)]:
+        monkeypatch.setenv("CSA_AUTO_DEVICE_MIN", threshold)
+        want = pipeline.auto_may_use_device(16)
+        with pytest.raises(ValueError):
+            webapp.run_rotation_job(str(fasta))
+        assert seen[-1] is want
+        if locked:
+            assert want
+    assert not webapp._DEVICE_LOCK.locked()
